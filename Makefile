@@ -9,7 +9,7 @@
 #                      but immune to the long-lived-process compiler
 #                      crash (the reliable local recipe)
 #   make runtime     - build the native C++ runtime library
-#   make bench       - TPU benchmark (one JSON line on stdout)
+#   make bench       - GPU benchmark (one JSON line on stdout)
 
 .PHONY: test test-fast test-files runtime bench
 

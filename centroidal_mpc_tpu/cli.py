@@ -51,10 +51,11 @@ def run_motion_main(argv=None):
     import numpy as np
 
     from centroidal_mpc_tpu.config import presets
-    from centroidal_mpc_tpu.contact.swing import compute_swing_trajectories
     from centroidal_mpc_tpu.pipeline import run_pipeline
-    from centroidal_mpc_tpu.sim import plots
     from centroidal_mpc_tpu.utils.artifacts import ArtifactStore
+    from centroidal_mpc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     preset = presets.PRESETS[args.preset]
     terrain = None
@@ -96,37 +97,56 @@ def run_motion_main(argv=None):
               f"fell={int(fell.sum())}/{len(fell)} "
               f"slip mean={float(np.mean(slip)):.3f} m")
 
-    # figures
-    prob = result.problem
-    U_sto = (np.asarray(result.stochastic.U)
-             if result.stochastic is not None else None)
-    plots.plot_contact_forces(preset.robot.foot_names, np.asarray(nom.U),
-                              U_sto, preset.dt, preset.mu, save_dir=args.out)
-    plots.plot_centroidal_trajectory(np.asarray(nom.X), result.warm_X,
-                                     preset.dt, save_dir=args.out)
-    if result.eval_stats:
-        plots.plot_tracking_cost(result.eval_stats, preset.dt,
-                                 save_dir=args.out)
-    swing = compute_swing_trajectories(prob.plan, preset.dt_ctrl)
-    plots.plot_swing_trajectories(swing, preset.robot.foot_names,
-                                  preset.dt_ctrl, save_dir=args.out)
-    if "physics_slippage_series" in result.eval_stats:
-        plots.plot_foot_slippage(
-            {"nominal": result.eval_stats["physics_slippage_series"]},
-            preset.dt_ctrl, save_dir=args.out)
-    if result.wb_traj is not None:
-        plots.plot_whole_body_solution(
-            np.asarray(result.wb_traj.q), np.asarray(result.wb_traj.qdot),
-            np.asarray(result.wb_traj.tau_ff), preset.dt_ctrl,
-            foot_names=preset.robot.foot_names,
-            base_pos=np.asarray(result.wb_traj.base_pos),
-            save_dir=args.out)
+    # figures (matplotlib is the optional `plots` extra)
+    try:
+        from centroidal_mpc_tpu.sim import plots
+    except ModuleNotFoundError as e:
+        if e.name != "matplotlib":
+            raise
+        print("[figures] skipped: matplotlib (the `plots` extra) is not "
+              "installed")
+        plots = None
+    if plots is not None:
+        _draw_figures(plots, result, preset, args.out)
     if not args.no_preview:
         from centroidal_mpc_tpu.sim.preview import write_motion_preview
         path = write_motion_preview(result, preset, args.out)
         print(f"[preview] 3D motion preview: {path}")
     print(f"[artifacts] written to {args.out}/")
     return result
+
+
+def _draw_figures(plots, result, preset, out):
+    """The reference's evaluation figures for one pipeline result."""
+    import numpy as np
+
+    from centroidal_mpc_tpu.contact.swing import compute_swing_trajectories
+
+    nom = result.nominal
+    prob = result.problem
+    U_sto = (np.asarray(result.stochastic.U)
+             if result.stochastic is not None else None)
+    plots.plot_contact_forces(preset.robot.foot_names, np.asarray(nom.U),
+                              U_sto, preset.dt, preset.mu, save_dir=out)
+    plots.plot_centroidal_trajectory(np.asarray(nom.X), result.warm_X,
+                                     preset.dt, save_dir=out)
+    if result.eval_stats:
+        plots.plot_tracking_cost(result.eval_stats, preset.dt,
+                                 save_dir=out)
+    swing = compute_swing_trajectories(prob.plan, preset.dt_ctrl)
+    plots.plot_swing_trajectories(swing, preset.robot.foot_names,
+                                  preset.dt_ctrl, save_dir=out)
+    if "physics_slippage_series" in result.eval_stats:
+        plots.plot_foot_slippage(
+            {"nominal": result.eval_stats["physics_slippage_series"]},
+            preset.dt_ctrl, save_dir=out)
+    if result.wb_traj is not None:
+        plots.plot_whole_body_solution(
+            np.asarray(result.wb_traj.q), np.asarray(result.wb_traj.qdot),
+            np.asarray(result.wb_traj.tau_ff), preset.dt_ctrl,
+            foot_names=preset.robot.foot_names,
+            base_pos=np.asarray(result.wb_traj.base_pos),
+            save_dir=out)
 
 
 def mpc_server_main(argv=None):

@@ -3,12 +3,12 @@
 The reference's whole-body layer runs Crocoddyl's contact forward dynamics
 on a Pinocchio model loaded from URDF (reference src/whole_body_control.py:
 ContactModel3D + DifferentialActionModelContactFwdDynamics at :360-382).
-This module is the TPU-native equivalent: a small, dense, fully
+This module is the accelerator-native equivalent: a small, dense, fully
 differentiable rigid-body engine over a fixed-topology kinematic tree,
 built for XLA —
 
-  * everything is dense (nv, nv) / (6, nv) matmuls that tile onto the MXU
-    and vmap over knots/batches; no sparse branch-per-joint code paths;
+  * everything is dense (nv, nv) / (6, nv) batched matmuls that vmap
+    over knots/batches; no sparse branch-per-joint code paths;
   * body Jacobians are assembled at the WORLD ORIGIN so the mass matrix is
     one einsum  M = sum_i J_i' I_i J_i  over bodies (O(nb) batched
     matmuls instead of a Featherstone recursion — at nv=18 the recursion's

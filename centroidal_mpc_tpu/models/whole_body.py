@@ -28,11 +28,11 @@ from typing import Dict
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from centroidal_mpc_tpu.contact.plan import ContactPlan
 from centroidal_mpc_tpu.contact.swing import SwingTrajectories
 from centroidal_mpc_tpu.models import kinematics as kin
+from centroidal_mpc_tpu.utils import struct
 
 # Reference PD gains per gait (src/simulate_solo.py:303-330).
 PD_GAINS = {"TROT": (4.0, 0.2), "PACE": (4.0, 0.2), "BOUND": (3.0, 0.2)}

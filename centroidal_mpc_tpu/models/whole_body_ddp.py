@@ -48,7 +48,6 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from centroidal_mpc_tpu.contact.plan import ContactPlan
 from centroidal_mpc_tpu.contact.swing import SwingTrajectories
@@ -56,6 +55,8 @@ from centroidal_mpc_tpu.models import kinematics as kin
 from centroidal_mpc_tpu.models import rigid_body as rb
 from centroidal_mpc_tpu.solver.ddp import (DdpSettings, DdpSolution,
                                            solve_ilqr_residual)
+from centroidal_mpc_tpu.utils import struct
+from centroidal_mpc_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -466,6 +467,7 @@ def kinematic_state_warm_start(spec: rb.RigidBodySpec,
     return jnp.concatenate([qs, vs], axis=1)
 
 
+@highest_precision
 def solve_whole_body_ddp(
         spec: rb.RigidBodySpec,
         targets: WholeBodyTargets,

@@ -36,9 +36,10 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from centroidal_mpc_tpu.solver.ocp import INF, QPData
+from centroidal_mpc_tpu.utils import struct
+from centroidal_mpc_tpu.utils.precision import highest_precision
 
 # Solver status codes (QPSolution.status / BlockQPSolution.status).
 # MAX_ITER means the iteration budget ran out without meeting the
@@ -73,22 +74,18 @@ class QPSettings:
     adaptive_rho_mode: str = "cond"
     eq_rho_scale: float = 1e3
     # Block-solver factorization: 'cholesky' (blocked Cholesky with
-    # pre-inverted factors, XLA scan; backward-stable, works everywhere),
-    # 'pallas' (same math fused into ops/pallas_blockqp TPU kernels with
-    # the scenario batch on the VPU lanes -- ~90x the XLA factorization
-    # on v5e, the TPU production path; under vmap requires
-    # adaptive_rho_mode='always'; interpret-mode on CPU), or 'thomas'
-    # (Newton-Schulz Schur-complement inverses, matmul-only -- the
-    # inverse error compounds through the knot recursion and breaks f32
-    # convergence on TPU; CPU-validated, experimental).  A fully-fused
-    # whole-iteration kernel ('pallas_fused', round 3) was measured
-    # structurally slower -- its generic row-matrix operator stream
-    # exceeds the XLA glue it eliminates -- and was removed in round 4
-    # (roofline analysis in PARITY.md).  Ignored by the dense solver.
+    # pre-inverted factors; XLA sends the batched Cholesky and triangular
+    # solves to cuSOLVER/cuBLAS; backward-stable, works everywhere) or
+    # 'thomas' (Newton-Schulz Schur-complement inverses, matmul-only --
+    # the inverse error compounds through the knot recursion and breaks
+    # f32 convergence; CPU-validated, experimental).  Ignored by the
+    # dense solver.
     factor_method: str = "cholesky"
-    # Block-solver sweep lowering: 'scan' (sequential, throughput default)
-    # or 'assoc' (log-depth associative scan; fewer dependent steps for
-    # latency mode at ~V x more FLOPs).  Ignored by the dense solver.
+    # Block-solver sweep lowering: 'scan' (sequential, throughput
+    # default; on a GPU one fused kernel per backsolve,
+    # ops/sweep_kernel.py, elsewhere XLA scans) or 'assoc' (log-depth
+    # associative scan; fewer dependent steps for latency mode at ~V x
+    # more FLOPs).  Ignored by the dense solver.
     sweep_method: str = "scan"
     # Block-solver solution polish (the OSQP polish step, reference
     # src/scp_solver.py:62, as a masked active-set ALM — see
@@ -108,7 +105,7 @@ class QPSettings:
     # ~sigma/(sigma + lambda_min)).  Measured on the N=50 trot QP in
     # f32 (2026-08-21, vs a 1e-9 f64 reference): (1e3, 1e-3, 12 iters,
     # 2 rounds) reaches u_err 5.5e-5 / x_err 3.0e-6 from a 90-iteration
-    # eps=5e-4 solve -- the BASELINE 1e-4 parity bar on-chip; larger
+    # eps=5e-4 solve -- the BASELINE 1e-4 parity bar; larger
     # sigma stalls the prox contraction, smaller diverges the f32
     # refinement (and is rejected by accept-if-improves).
     polish_sigma: float = 1e-3
@@ -137,7 +134,7 @@ class QPSettings:
     # dual least-squares optimum over the same detected active rows
     # sits at ~1e-7 scaled, benchmarks/_probe_lsq.py).  With the
     # two-float dual the same CG budget certifies 128/128 lanes at
-    # eps=1e-5 on-chip, SURVEY section 7c's "f64 islands" hard part
+    # eps=1e-5, SURVEY section 7c's "f64 islands" hard part
     # done at pure-f32 cost (one extra A' application per restart).
     # 0 disables.
     polish_cg_iters: int = 15
@@ -215,6 +212,7 @@ def _rho_vector(l, u, rho, settings: QPSettings):
                      jnp.where(loose, rho / settings.eq_rho_scale, rho))
 
 
+@highest_precision
 def solve_qp(qp: QPData, settings: QPSettings = QPSettings(),
              x0=None, y0=None) -> QPSolution:
     """Solve min 1/2 x'Px + q'x s.t. l <= Ax <= u.  Jittable/vmappable."""

@@ -1,15 +1,17 @@
-"""Matmul-only linear-algebra primitives for TPU.
+"""Matmul-only linear-algebra primitives.
 
-XLA lowers small-matrix LU/Cholesky/triangular ops poorly on TPU (they
-dominate profiles when batched over scenarios x knots, e.g. the 12x12
-solves inside the LQR gain recursion).  These helpers stay in pure
-batched-matmul land, which the MXU executes natively.
+The 12x12 SPD solves inside the LQR gain recursion are batched over
+scenarios x knots; these helpers keep them in plain batched matrix
+products (no per-matrix factorization), at full f32 precision.
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
 
+from centroidal_mpc_tpu.utils.precision import highest_precision
 
+
+@highest_precision
 def spd_inverse(H: jnp.ndarray, iters: int = 16) -> jnp.ndarray:
     """Inverse of a symmetric positive-definite matrix via Jacobi-scaled
     Newton-Schulz iteration: X <- X (2I - H X), quadratically convergent.

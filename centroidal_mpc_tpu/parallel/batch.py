@@ -7,11 +7,13 @@ sims.  Here batching is a transform, not a rewrite:
   * `batched_solve`: vmap of the whole jitted SCP program over a scenario
     axis (initial/final states, tracking targets, warm starts vary; the
     model and contact schedule are shared).  This is the throughput path --
-    every ADMM matvec becomes a batched matmul on the MXU.
+    every ADMM matvec becomes a batched matmul.
   * `make_sharded_solver`: shard_map of the batched solver over a device
     mesh along the scenario axis ('scenarios'), with XLA collectives
-    reducing fleet-level statistics over ICI.  Works identically on a
-    virtual CPU mesh (tests) and a real TPU slice.
+    (NCCL on GPUs) reducing fleet-level statistics.  The cards of one
+    host are joined all to all (NVLink), so a one-axis mesh is the
+    whole layout.  Works identically on a virtual CPU mesh (tests) and
+    the cards of a GPU host.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ def make_sharded_solver(mesh: Mesh, model: CentroidalModel,
     """Build a jitted, mesh-sharded batch solver.
 
     Returns solve(cfg_batch, X0, U0) -> (ScpSolution sharded over
-    scenarios, fleet stats dict reduced with psum over ICI).
+    scenarios, fleet stats dict reduced with psum across the mesh).
     The scenario batch must divide the mesh axis size.
     """
 

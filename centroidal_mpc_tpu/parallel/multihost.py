@@ -2,11 +2,11 @@
 
 The reference has no distributed story (SURVEY.md section 2d).  The
 scaling design here follows the north star: scenario batches shard over
-all chips of a multi-host slice; collectives ride ICI within a slice (the
-psum'd fleet statistics in parallel/batch.py) and DCN only for host
-coordination.  On this round's hardware (one physical chip) multi-host
-runs are validated structurally: the same code path drives the virtual
-8-device CPU mesh in tests and `__graft_entry__.dryrun_multichip`.
+all devices of several hosts; collectives carry the psum'd fleet
+statistics (parallel/batch.py) and the network only host coordination.
+Multi-host runs are validated structurally on the CPU: the same code
+path drives the gloo-coordinated CPU processes in tests and the virtual
+8-device CPU mesh of `__graft_entry__.dryrun_multichip`.
 
 Usage on a real slice (one process per host):
 
@@ -73,8 +73,8 @@ def fleet_solver(model: CentroidalModel, schedule: ContactSchedule,
                  settings: ScpSettings, axis: str = AXIS):
     """(solver, mesh): the shard_map batch solver over the global mesh.
 
-    The batch axis of (cfg, X0, U0) shards across all chips of the slice;
-    fleet statistics reduce with psum over ICI.
+    The batch axis of (cfg, X0, U0) shards across all devices of all
+    hosts; fleet statistics reduce with psum.
     """
     mesh = global_mesh(axis)
     return make_sharded_solver(mesh, model, schedule, settings, axis), mesh

@@ -13,11 +13,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from centroidal_mpc_tpu.contact.plan import ContactSchedule
 from centroidal_mpc_tpu.models.centroidal import (CentroidalModel,
                                                   dynamics_step)
+from centroidal_mpc_tpu.utils import struct
+from centroidal_mpc_tpu.utils.precision import highest_precision
 
 # Reference disturbance model (src/simulate_solo.py:90-115, 281-291):
 # 3D force ~ N(0, 15 I); only the y component is applied, for 200 ms.
@@ -74,6 +75,7 @@ def closed_loop_rollout(model: CentroidalModel, schedule: ContactSchedule,
     return jnp.concatenate([x0[None], xs], axis=0), us
 
 
+@highest_precision
 def run_monte_carlo(model: CentroidalModel, schedule: ContactSchedule,
                     X_ref, U_ref, K, key, n_sims: int) -> MonteCarloResult:
     """vmap the rollout over n_sims sampled disturbances."""

@@ -28,11 +28,12 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from centroidal_mpc_tpu.contact.terrain import FLAT, Terrain, TerrainArrays
 from centroidal_mpc_tpu.models import rigid_body as rb
 from centroidal_mpc_tpu.sim.monte_carlo import FORCE_COV, PUSH_MS
+from centroidal_mpc_tpu.utils import struct
+from centroidal_mpc_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +222,7 @@ def simulate_episode(spec: rb.RigidBodySpec, refs: ClosedLoopReferences,
     return h, feet, rpy
 
 
+@highest_precision
 def run_physics_monte_carlo(spec: rb.RigidBodySpec,
                             refs: ClosedLoopReferences, x0: jnp.ndarray,
                             key, n_sims: int,

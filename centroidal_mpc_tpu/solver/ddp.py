@@ -22,9 +22,10 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from centroidal_mpc_tpu.ops.linalg import spd_inverse
+from centroidal_mpc_tpu.utils import struct
+from centroidal_mpc_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +142,7 @@ def solve_ilqr_residual(dynamics: Callable, stage_residual: Callable,
                        x0, U0, settings, X_init=X_init)
 
 
+@highest_precision
 def _solve_core(dynamics: Callable, stage_cost: Callable,
                 terminal_cost: Callable, derivatives: Callable,
                 x0: jnp.ndarray, U0: jnp.ndarray,

@@ -22,12 +22,12 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from centroidal_mpc_tpu.contact.plan import ContactSchedule
 from centroidal_mpc_tpu.models.centroidal import CentroidalModel, N_X
 from centroidal_mpc_tpu.solver.ocp import OcpConfig
 from centroidal_mpc_tpu.solver.scp import ScpSettings, ScpSolution, solve_scp
+from centroidal_mpc_tpu.utils import struct
 
 
 class MpcState(struct.PyTreeNode):

@@ -28,7 +28,6 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from centroidal_mpc_tpu.contact.plan import ContactSchedule
 from centroidal_mpc_tpu.models.centroidal import (CentroidalModel,
@@ -37,6 +36,8 @@ from centroidal_mpc_tpu.models.centroidal import (CentroidalModel,
 from centroidal_mpc_tpu.ops.admm import QPSettings, solve_qp
 from centroidal_mpc_tpu.ops import blockqp
 from centroidal_mpc_tpu.solver.ocp import N_X, OcpConfig, build_qp, qp_dims
+from centroidal_mpc_tpu.utils import struct
+from centroidal_mpc_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,12 +56,12 @@ class ScpSettings:
     max_iterations: int = 10
     update_linearization: bool = False  # reference-compat default
     # 'dense' = ops.admm on the assembled matrices (reference-layout
-    # path); 'block' = ops.blockqp structure-exploiting solver (the TPU
+    # path); 'block' = ops.blockqp structure-exploiting solver (the
     # throughput path; point3 and wrench6 robots).
     qp_backend: str = "dense"
     # spectral norm for the trust-region test: 'svd' (exact, the
     # reference's np.linalg.norm(A, 2)) or 'power' (10-step power
-    # iteration; batched SVD is slow on TPU and radius margins are wide)
+    # iteration: matmuls only, and the radius margins are wide)
     norm_method: str = "svd"
     # DARE fixed-point iterations for the LQR gains (reference uses 2,
     # src/centroidal_model.py:217-228).  At the full reference horizon
@@ -91,6 +92,9 @@ class ScpSolution(struct.PyTreeNode):
                                 # (PRIMAL/DUAL_INFEASIBLE certify the
                                 # abort cause, vs the reference's bare
                                 # False return, src/scp_solver.py:146-148)
+    qp_stalled: jnp.ndarray     # bool: the last QP left on its stall exit
+    qp_polished: jnp.ndarray    # bool: the last QP kept its polished iterate
+                                # (block backend; False on the dense one)
     radius: jnp.ndarray
     weight: jnp.ndarray
     rho: jnp.ndarray          # model-accuracy ratio of the last iteration
@@ -114,6 +118,7 @@ def _convergence_metric(X_curr, U_curr, X_prev, U_prev):
             + _matrix_norm2(X_curr - X_prev) / _matrix_norm2(X_curr))
 
 
+@highest_precision
 def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
               cfg: OcpConfig, X0: jnp.ndarray, U0: jnp.ndarray,
               settings: ScpSettings = ScpSettings()) -> ScpSolution:
@@ -140,6 +145,8 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         qp_iters: jnp.ndarray
         qp_ok: jnp.ndarray
         qp_status: jnp.ndarray
+        qp_stalled: jnp.ndarray
+        qp_polished: jnp.ndarray
         rho: jnp.ndarray
         conv: jnp.ndarray
         warm_x: jnp.ndarray
@@ -159,6 +166,8 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         qp_iters=jnp.zeros((), jnp.int32),
         qp_ok=jnp.asarray(True),
         qp_status=jnp.zeros((), jnp.int32),
+        qp_stalled=jnp.asarray(False),
+        qp_polished=jnp.asarray(False),
         rho=jnp.zeros((), dtype),
         conv=jnp.zeros((), dtype),
         # Block backend: primal warm start from the linearization
@@ -187,10 +196,8 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
     # src/scp_solver.py:140 linearizing the initial trajectory every
     # iteration): X_lin/U_lin never change, so the linearization -- and
     # especially the LQR-gain chain, whose Newton-Schulz inverses are
-    # ~100 sequential tiny matmuls per DARE and dominated the batched
-    # solve profile at ~25 ms/solve when recomputed inside the loop
-    # (measured TPU v5e, batch 128) -- is computed ONCE outside the
-    # while_loop.  XLA does not hoist it on its own.
+    # ~100 sequential tiny matmuls per DARE -- is computed ONCE outside
+    # the while_loop.  XLA does not hoist it on its own.
     data_const = None
     qp_const = None
     if not settings.update_linearization:
@@ -234,6 +241,7 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
             sol_warm_y, sol_warm_t = bsol.y, bsol.t
             sol_iters, sol_converged = bsol.iterations, bsol.converged
             sol_status = bsol.status
+            sol_stalled, sol_polished = bsol.stalled, bsol.polished
         else:
             qp = build_qp(model, schedule, cfg, c.X_lin, c.U_lin, data,
                           c.radius, c.weight)
@@ -244,6 +252,7 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
             sol_warm_x, sol_warm_y, sol_warm_t = sol.x, sol.y, c.warm_t
             sol_iters, sol_converged = sol.iterations, sol.converged
             sol_status = sol.status
+            sol_stalled = sol_polished = jnp.asarray(False)
 
         inside = (_matrix_norm2(X_sol - c.X_cmp, settings.norm_method)
                   < c.radius)
@@ -287,6 +296,7 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
             qp_iters=c.qp_iters + sol_iters,
             qp_ok=c.qp_ok & sol_converged,
             qp_status=sol_status,
+            qp_stalled=sol_stalled, qp_polished=sol_polished,
             rho=rho, conv=conv, warm_x=sol_warm_x, warm_y=sol_warm_y,
             warm_t=sol_warm_t)
 
@@ -296,4 +306,5 @@ def solve_scp(model: CentroidalModel, schedule: ContactSchedule,
         success=c.success, accepted=c.accepted, iterations=c.it,
         qp_iterations=c.qp_iters, qp_converged=c.qp_ok,
         qp_status=c.qp_status,
+        qp_stalled=c.qp_stalled, qp_polished=c.qp_polished,
         radius=c.radius, weight=c.weight, rho=c.rho)

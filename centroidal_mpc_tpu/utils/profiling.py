@@ -2,12 +2,14 @@
 
 The reference has no profiling at all (SURVEY.md section 5: an unused
 `time` import and print statements).  Here: wall-clock stage timers with
-device synchronization, solves/s accounting, and a jax.profiler trace
-context for TPU timeline capture.
+device synchronization, solves/s accounting, a jax.profiler trace
+context for device timeline capture, and the card identity every
+measurement is reported with.
 """
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from typing import Dict, List, Optional
 
@@ -49,6 +51,22 @@ def trace(log_dir: Optional[str] = None):
         return
     with jax.profiler.trace(log_dir):
         yield
+
+
+def gpu_name_and_power_limit() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit` of the first card, read
+    in a child process that stays off JAX (a card capped below its
+    maximum power runs slower under load, so every number is reported
+    beside this line)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({type(e).__name__})"
+    lines = out.strip().splitlines()
+    return lines[0] if lines else "nvidia-smi: no card"
 
 
 def measure_solves_per_second(solve_fn, args_fn, batch: int,

@@ -5,7 +5,7 @@ Solver thread + 1 kHz control thread over the native trajectory bus --
 the deployment topology the reference approximates with npz files and a
 free-running Python loop (src/simulate_solo.py:281-309):
 
-  solver thread:  jitted SCP solves (TPU/CPU) -> cmpc_bus_publish
+  solver thread:  jitted SCP solves (GPU/CPU) -> cmpc_bus_publish
   control thread: native deadline ticker at dt_ctrl -> cmpc_bus_sample ->
                   closed-loop centroidal step with the sampled LQR gains
 

@@ -1,4 +1,4 @@
-/* cmpc_runtime: native host-side runtime for the TPU-native centroidal MPC.
+/* cmpc_runtime: native host-side runtime for the centroidal MPC.
  *
  * The JAX/XLA side owns all device compute (linearization, QP, SCP).  This
  * library owns the host realtime path around it, replacing the reference's

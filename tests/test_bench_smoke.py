@@ -1,32 +1,34 @@
-"""CPU smoke test for every bench.py configuration (VERDICT round 2, item 2).
+"""CPU smoke test for every bench.py configuration and the chip smoke.
 
-Round 2 shipped a trace-time crash (polish=True under the batched pallas
-loop) that only bench.py's accuracy-tier table exercised, so the driver's
-TPU bench run died without a JSON line.  This test drives bench.run() --
-the EXACT code paths of the driver bench -- at tiny scale on CPU:
+bench.run() and chip_smoke.py are what runs on the GPU; this test drives
+the EXACT code paths at tiny scale on the CPU:
 
-  * trace-only sweep: every configuration (factor in {cholesky, thomas,
-    pallas}, polish on/off, rho fixed/'always', stochastic, batch >=
-    PALLAS_MIN_BATCH and batch 1, the latency probe shape, the
-    kernel-parity shape, and the full accuracy_tiers table incl. the
-    (1e-4, polish=True) tier that crashed round 2) is jit-LOWERED --
+  * trace-only sweep: every bench configuration (factor in {cholesky,
+    thomas}, sweep in {scan, assoc}, polish on/off, rho
+    fixed/'always', stochastic, batch 32 and batch 1, the latency probe
+    shape, and the full accuracy_tiers table) is jit-LOWERED --
     trace-time regressions raise without paying XLA compile time.
-  * one executed combo: the batched-pallas polish path actually runs
-    end-to-end (interpret-mode kernels) on an N=9 step-in-place trot.
-
-The trace-only sweep fails on round-2 HEAD (the vmap rank-0 ValueError
-is raised during tracing).
+    Lowered for the CPU, the solver keeps its XLA scan sweeps.
+  * the same for each jitted phase program of chip_smoke.py; both
+    scripts refuse a timed run without a GPU.
 """
 import dataclasses
+import functools
 import json
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 
 import bench
+import chip_smoke
 from centroidal_mpc_tpu.config import gaits, presets
-from centroidal_mpc_tpu.ops.blockqp import PALLAS_MIN_BATCH
+from centroidal_mpc_tpu.ops import blockqp, sweep_kernel
+from centroidal_mpc_tpu.ops.admm import QPSettings
+from centroidal_mpc_tpu.solver.scp import solve_scp
 
 TINY_NAME = "smoke_tiny_trot"
+BATCH = 32
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,22 +64,22 @@ SKIP_EXTRAS = ["--no-stochastic", "--no-mpc", "--no-n165",
                "--latency-probes", "0", "--chip-latency-problems", "0"]
 
 TRACE_COMBOS = [
-    # the full default record: polish through the batched pallas loop,
-    # the accuracy-tier table, kernel parity + exact, the latency-probe
-    # shape, the stochastic record and the MPC tick chain (N=165 is
-    # never traced -- n165_record is skipped under --trace-only)
-    # the preset coverage matrix traces via --preset-matrix pointed at
-    # the tiny preset (the real 4-preset matrix is full-horizon -- too
-    # heavy for smoke; its solve path is identical, and the wrench6
-    # family is covered by tests/test_full_horizons.py)
-    ["--factor", "pallas", "--polish", "--batch", str(PALLAS_MIN_BATCH),
+    # the full default record: the accuracy-tier table, the
+    # latency-probe shape, the stochastic record and the MPC tick chain
+    # (N=165 is never traced -- n165_record is skipped under
+    # --trace-only); the preset coverage matrix traces via
+    # --preset-matrix pointed at the tiny preset (the real 4-preset
+    # matrix is full-horizon -- too heavy for smoke; its solve path is
+    # identical, and the wrench6 family is covered by
+    # tests/test_full_horizons.py)
+    ["--factor", "cholesky", "--polish", "--batch", str(BATCH),
      "--latency-probes", "2", "--no-n165",
      "--preset-matrix", TINY_NAME],
-    ["--factor", "pallas", "--rho", "always",
-     "--batch", str(PALLAS_MIN_BATCH), "--no-accuracy", "--no-parity"]
+    ["--factor", "cholesky", "--rho", "always",
+     "--batch", str(BATCH), "--no-accuracy", "--no-parity"]
     + SKIP_EXTRAS,
-    ["--factor", "pallas", "--no-polish",
-     "--batch", str(PALLAS_MIN_BATCH), "--no-accuracy", "--no-parity"]
+    ["--sweep", "scan", "--no-polish",
+     "--batch", str(BATCH), "--no-accuracy", "--no-parity"]
     + SKIP_EXTRAS,
     ["--factor", "cholesky", "--polish", "--batch", "1", "--no-accuracy"]
     + SKIP_EXTRAS,
@@ -91,23 +93,61 @@ TRACE_COMBOS = [
                              a.lstrip("-") for a in c if a.startswith("--")))
 def test_trace_every_bench_configuration(combo):
     rec = run_bench(["--trace-only"] + combo)
+    assert rec["device"]["platform"] == "cpu"
+    sweep = combo[combo.index("--sweep") + 1] if "--sweep" in combo else "scan"
+    assert rec["settings"]["sweep"] == sweep
     assert rec["trace_only"] is True
     if "accuracy_tiers" in rec:
         assert len(rec["accuracy_tiers"]) == 4
 
 
-@pytest.mark.slow  # ~3 min interpret-mode compile; the trace-only sweep
-# above is the fast regression net (it catches the round-2 crash class)
-def test_execute_pallas_polish_batched():
-    """The batched pallas+polish path runs end-to-end (interpret kernels)
-    and every scenario converges on the tiny problem."""
-    # tiny polish budgets: the full 12x2 ALM + CG program in interpret
-    # mode is a multi-10-minute XLA:CPU compile; 2x1 ALM + 2 CG
-    # exercises every code path at smoke cost
-    rec = run_bench(["--factor", "pallas", "--polish",
-                     "--batch", str(PALLAS_MIN_BATCH), "--no-accuracy",
-                     "--no-parity", "--polish-alm-iters", "2",
-                     "--polish-rounds", "1", "--polish-cg-iters", "2",
-                     "--polish-cg-restarts", "1"] + SKIP_EXTRAS)
-    assert rec["value"] > 0
-    assert rec["n_success"] == PALLAS_MIN_BATCH
+def test_timed_bench_refuses_cpu():
+    """A timed run measures the GPU only; on the CPU it exits."""
+    with pytest.raises(SystemExit, match="GPU"):
+        run_bench(["--no-accuracy", "--no-parity"] + SKIP_EXTRAS)
+
+
+SMOKE_PHASES = ["sweep_kernel_phase", "headline_phase", "single_phase",
+                "stochastic_phase", "long_horizon_phase", "mpc_phase"]
+
+
+@pytest.mark.parametrize("phase", SMOKE_PHASES)
+def test_chip_smoke_phase_lowers(phase, monkeypatch):
+    """Each jitted program of chip_smoke.py lowers at the tiny preset
+    (phase a's direct kernel call through the interpreter)."""
+    monkeypatch.setattr(blockqp, "block_tridiag_sweep", functools.partial(
+        sweep_kernel.block_tridiag_sweep, interpret=True))
+    sizes = chip_smoke.Sizes(headline=TINY_NAME, headline_batch=2,
+                             stoch_batch=2, long=TINY_NAME, long_batch=2,
+                             mpc_window=4, mpc_ticks=2)
+    p = getattr(chip_smoke, phase)(sizes)
+    p.fn.lower(*p.args)
+
+
+def test_chip_smoke_exits_nonzero_without_gpu(capsys):
+    """No accelerator: non-zero exit and no result line."""
+    assert chip_smoke.main([]) != 0
+    assert capsys.readouterr().out == ""
+
+
+def _f64_reference(preset, stochastic=False):
+    """bench.f64_reference's operating point, solved here (the tiny
+    preset has no committed cache)."""
+    qp64 = QPSettings(eps_abs=1e-7, eps_rel=1e-7, max_iter=20000,
+                      adaptive_rho=True, polish=True)
+    p = presets.build_problem(preset, stochastic=stochastic,
+                              dtype=jnp.float64, qp=qp64)
+    scp = dataclasses.replace(p.scp, qp_backend="block")
+    sol = solve_scp(p.model, p.plan.schedule, p.ocp, p.X0, p.U0, scp)
+    return np.asarray(sol.X), np.asarray(sol.U)
+
+
+def test_four_cards_on_virtual_devices(monkeypatch):
+    """The --four-cards path on four virtual CPU devices at the tiny
+    preset: the sharded and unsharded solves run and pass every check
+    up to the last, the per-card memory one (CPU devices keep no
+    memory statistics)."""
+    monkeypatch.setattr(chip_smoke, "_reference", _f64_reference)
+    sizes = chip_smoke.Sizes(headline=TINY_NAME, headline_batch=8)
+    with pytest.raises(chip_smoke.SmokeFailure, match="peak bytes"):
+        chip_smoke.four_cards(sizes)

@@ -217,7 +217,7 @@ def test_f32_polish_reaches_parity_bar(problem):
     item 1): a LOOSE (eps=5e-4, ~90 iteration) float32 solve plus the
     residual-form refinement polish reaches the BASELINE 1e-4-class
     parity bar against a tight (eps=1e-9 + polish) float64 reference --
-    the f32-on-TPU accuracy story, verified here on the CPU backend
+    the f32-on-GPU accuracy story, verified here on the CPU backend
     (same arithmetic, same code path)."""
     prob, data = problem
     qp64 = blockqp.build_block_qp(prob.model, prob.plan.schedule,

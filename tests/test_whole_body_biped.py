@@ -3,7 +3,7 @@
 The reference exercises Bolt and Talos only through its Crocoddyl
 whole-body layer (conf_bolt.py, conf_talos.py — both gait + whole-body
 weights only, SURVEY.md section 2a row 10); Talos uses flat-foot 6D
-contacts (ContactModel6D).  These tests cover the TPU-native equivalents:
+contacts (ContactModel6D).  These tests cover the JAX equivalents:
 bolt_spec/talos_spec rigid-body models, the generic numeric-IK standing
 path, flat-foot contact-KKT dynamics, and full whole-body DDP solves.
 """
